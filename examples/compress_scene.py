@@ -21,15 +21,16 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mojosplat_tpu.utils.compress import compress_scene, load_compressed_scene
-from mojosplat_tpu.utils.ply import load_gaussian_ply, save_gaussian_ply
+from mojosplat_jax.utils.compress import compress_scene, load_compressed_scene
+from mojosplat_jax.utils.ply import load_gaussian_ply, save_gaussian_ply
+from mojosplat_jax.utils.runtime import enable_compile_cache
 
 
 def _load_any(path: str) -> dict:
     if path.endswith(".npz"):
         return load_compressed_scene(path)
     if path.endswith(".splat"):
-        from mojosplat_tpu.utils.splat import load_gaussian_splat
+        from mojosplat_jax.utils.splat import load_gaussian_splat
 
         return load_gaussian_splat(path)
     return load_gaussian_ply(path)
@@ -38,8 +39,8 @@ def _load_any(path: str) -> dict:
 def _verify_psnr(params_a: dict, params_b: dict, sh_k: int) -> float:
     import jax.numpy as jnp
 
-    from mojosplat_tpu import Camera, render_gaussians, look_at
-    from mojosplat_tpu import train as mtrain
+    from mojosplat_jax import Camera, render_gaussians, look_at
+    from mojosplat_jax import train as mtrain
 
     center = np.asarray(params_a["means3d"]).mean(axis=0)
     extent = float(
@@ -80,6 +81,7 @@ def main() -> None:
     ap.add_argument("--verify", action="store_true",
                     help="render before/after and report PSNR")
     args = ap.parse_args()
+    enable_compile_cache()
 
     params = _load_any(args.src)
     n = params["means3d"].shape[0]

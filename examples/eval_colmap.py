@@ -4,7 +4,7 @@ The held-out evaluation harness standard 3DGS pipelines ship and the
 forward-only reference cannot (no dataset loading, no metrics;
 /root/reference/render_sample.py renders random clouds only): load a scene
 PLY (e.g. the output of examples/train_colmap.py), render every Nth view
-through the TPU-native pipeline, and report per-view + mean PSNR / SSIM.
+through the render pipeline, and report per-view + mean PSNR / SSIM.
 
     python examples/eval_colmap.py --data /path/to/capture \
         --ply output/train_colmap/fitted.ply --downscale 4 --every 8
@@ -23,11 +23,12 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mojosplat_tpu import RenderConfig, render_gaussians, render_surfels  # noqa: E402
-from mojosplat_tpu import train as mtrain  # noqa: E402
-from mojosplat_tpu.train import psnr  # noqa: E402
-from mojosplat_tpu.utils import load_gaussian_ply, save_png  # noqa: E402
-from mojosplat_tpu.utils import colmap as cm  # noqa: E402
+from mojosplat_jax import RenderConfig, render_gaussians, render_surfels  # noqa: E402
+from mojosplat_jax import train as mtrain  # noqa: E402
+from mojosplat_jax.train import psnr  # noqa: E402
+from mojosplat_jax.utils import load_gaussian_ply, save_png  # noqa: E402
+from mojosplat_jax.utils import colmap as cm  # noqa: E402
+from mojosplat_jax.utils.runtime import enable_compile_cache  # noqa: E402
 from train_colmap import load_view_images  # noqa: E402
 
 
@@ -57,6 +58,7 @@ def main():
                     help="bilateral-grid TV weight during the test-time fit "
                     "(match the trainer's --bilagrid-tv for comparable runs)")
     args = ap.parse_args()
+    enable_compile_cache()
 
     sparse = args.sparse or os.path.join(args.data, "sparse", "0")
     scene = cm.load_scene(sparse)
@@ -98,7 +100,7 @@ def main():
     if app != "none":
         import optax
 
-        from mojosplat_tpu import (
+        from mojosplat_jax import (
             apply_bilateral_grid,
             bilateral_grid_tv,
             identity_bilateral_grid,
@@ -120,9 +122,7 @@ def main():
             a0 = (mtrain.identity_exposure(1)[0] if app == "affine"
                   else identity_bilateral_grid(1)[0])
             h, w, c = img.shape
-            # Built during tracing (NOT closure-captured: a pre-existing
-            # device array in a jit closure drops this whole process to the
-            # ~30 ms/dispatch path — CLAUDE.md machine rules).
+            # Built during tracing rather than captured as a constant.
             left = (jnp.arange(w) < w // 2).astype(img.dtype)[None, :, None]
 
             def loss(a):

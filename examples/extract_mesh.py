@@ -24,16 +24,17 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import jax
 import jax.numpy as jnp
 
-from mojosplat_tpu import Camera, RenderConfig, look_at
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.surfel import render_surfels
-from mojosplat_tpu.utils.mesh import (
+from mojosplat_jax import Camera, RenderConfig, look_at
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.surfel import render_surfels
+from mojosplat_jax.utils.mesh import (
     marching_tetrahedra,
     save_mesh_obj,
     save_mesh_ply,
     tsdf_fuse,
 )
-from mojosplat_tpu.utils.ply import load_gaussian_ply
+from mojosplat_jax.utils.ply import load_gaussian_ply
+from mojosplat_jax.utils.runtime import enable_compile_cache
 
 
 def main():
@@ -45,13 +46,13 @@ def main():
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--res", type=int, default=192, help="TSDF grid res")
-    ap.add_argument("--impl", default="pallas", choices=["xla", "pallas"])
     ap.add_argument("--elevations", type=float, nargs="+",
                     default=[-0.2, 0.25, 0.6])
     ap.add_argument("--alpha-floor", type=float, default=0.5)
     ap.add_argument("--margin", type=float, default=0.1,
                     help="grid margin as a fraction of the scene extent")
     args = ap.parse_args()
+    enable_compile_cache()
 
     raw = load_gaussian_ply(args.src)
     p = mtrain.activate({k: jnp.asarray(v) for k, v in raw.items()})
@@ -69,12 +70,7 @@ def main():
     H, W = args.height, args.width
     focal = 0.7 * W
 
-    config = RenderConfig(
-        raster_impl=args.impl, tile_capacity=512, chunk_size=64,
-        pallas_chunk=128,
-        pallas_interpret=(args.impl == "pallas"
-                          and jax.default_backend() == "cpu"),
-    )
+    config = RenderConfig(tile_capacity=512, chunk_size=64)
 
     @jax.jit
     def depth_view(params, cam):

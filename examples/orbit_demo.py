@@ -22,9 +22,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mojosplat_tpu import Camera, RenderConfig, look_at, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils import load_gaussian_ply, save_png
+from mojosplat_jax import Camera, RenderConfig, look_at, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils import load_gaussian_ply, save_png
+from mojosplat_jax.utils.runtime import enable_compile_cache
 
 
 def orbit_camera(angle, radius, H, W, f):
@@ -49,6 +50,7 @@ def main():
     ap.add_argument("--gif", action="store_true",
                     help="also write an animated orbit.gif of the frames")
     args = ap.parse_args()
+    enable_compile_cache()
     if args.gif:
         import PIL  # noqa: F401  fail fast, before minutes of rendering
     os.makedirs(args.out_dir, exist_ok=True)

@@ -25,10 +25,11 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from mojosplat_tpu import RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils import save_gaussian_ply, save_png
-from mojosplat_tpu.utils.blender import load_blender_scene
+from mojosplat_jax import RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils import save_gaussian_ply, save_png
+from mojosplat_jax.utils.blender import load_blender_scene
+from mojosplat_jax.utils.runtime import enable_compile_cache
 
 
 def main():
@@ -55,6 +56,7 @@ def main():
     ap.add_argument("--densify-every", type=int, default=100,
                     help="steps between MCMC relocation events")
     args = ap.parse_args()
+    enable_compile_cache()
     os.makedirs(args.out_dir, exist_ok=True)
 
     scene = load_blender_scene(
@@ -82,16 +84,14 @@ def main():
 
     config = RenderConfig(
         tile_capacity=args.tile_capacity, chunk_size=64, max_tile_span=8,
-        tile_batch=512, raster_impl=args.impl, pallas_chunk=128,
-        pallas_interpret=(args.impl == "pallas"
-                          and jax.default_backend() == "cpu"),
+        tile_batch=512, raster_impl=args.impl,
     )
     optimizer = mtrain.make_optimizer(args.lr)
     state = mtrain.init_train_state(raw, optimizer)
 
     mcmc = args.strategy == "mcmc"
     if mcmc:
-        from mojosplat_tpu.densify import (
+        from mojosplat_jax.densify import (
             MCMCConfig,
             mcmc_position_noise,
             mcmc_regularization,

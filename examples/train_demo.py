@@ -4,7 +4,7 @@ The reference is forward-only (@torch.no_grad(), /root/reference/mojosplat/
 render.py:11; backward listed as future work, README.md:145) — this demo
 exercises the full differentiable pipeline: a ground-truth scene renders B
 target views, a fresh random cloud is optimized with Adam through the
-renderer (Pallas kernels on TPU, XLA path anywhere), and the fitted scene is
+renderer (Pallas kernels on the GPU, XLA route anywhere), and the fitted scene is
 exported as a standard 3DGS PLY plus before/after PNGs.
 
     python examples/train_demo.py --steps 300 --impl pallas
@@ -23,10 +23,11 @@ import jax.numpy as jnp
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mojosplat_tpu import Camera, RenderConfig, look_at, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.train import psnr
-from mojosplat_tpu.utils import save_gaussian_ply, save_png
+from mojosplat_jax import Camera, RenderConfig, look_at, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.train import psnr
+from mojosplat_jax.utils import save_gaussian_ply, save_png
+from mojosplat_jax.utils.runtime import enable_compile_cache
 
 
 def make_cameras(B, H, W):
@@ -79,11 +80,12 @@ def main():
         "opacity-gated position noise + L1 regularizers",
     )
     args = ap.parse_args()
+    enable_compile_cache()
     os.makedirs(args.out_dir, exist_ok=True)
 
     config = RenderConfig(
         tile_capacity=256, chunk_size=64, max_tile_span=8,
-        raster_impl=args.impl, pallas_chunk=128,
+        raster_impl=args.impl,
     )
     H, W, B = args.height, args.width, args.views
     cams = make_cameras(B, H, W)
@@ -118,7 +120,7 @@ def main():
     adc = densify and args.strategy == "adc"
     mcmc = densify and args.strategy == "mcmc"
     if densify:
-        from mojosplat_tpu.densify import (
+        from mojosplat_jax.densify import (
             DensifyState,
             densify_and_prune,
             pad_to_capacity,
@@ -130,7 +132,7 @@ def main():
     n_slots = raw["opacities_raw"].shape[0]
 
     if mcmc:
-        from mojosplat_tpu.densify import (
+        from mojosplat_jax.densify import (
             MCMCConfig,
             mcmc_position_noise,
             mcmc_regularization,
@@ -175,7 +177,7 @@ def main():
             return state, dstate, losses
 
         run_d = jax.jit(functools.partial(multi_step, n=args.steps_per_call))
-        from mojosplat_tpu.densify import DensifyConfig
+        from mojosplat_jax.densify import DensifyConfig
 
         densify_fn = jax.jit(
             functools.partial(

@@ -2,8 +2,8 @@
 
 Fits a cloud of 2D gaussian surfels to rendered target views with a
 photometric loss plus the 2DGS paper's normal-consistency regularizer —
-the second primitive family's analogue of train_demo.py. Runs on CPU or a
-single TPU chip (XLA rasterization path).
+the second primitive family's analogue of train_demo.py. Runs on the CPU or
+one GPU (XLA rasterization route).
 
     python examples/train_surfel_demo.py --steps 200
 """
@@ -22,14 +22,15 @@ import optax
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from mojosplat_tpu import Camera, RenderConfig, look_at  # noqa: E402
-from mojosplat_tpu import train as mtrain  # noqa: E402
-from mojosplat_tpu.train import psnr  # noqa: E402
-from mojosplat_tpu.surfel import (  # noqa: E402
+from mojosplat_jax import Camera, RenderConfig, look_at  # noqa: E402
+from mojosplat_jax import train as mtrain  # noqa: E402
+from mojosplat_jax.train import psnr  # noqa: E402
+from mojosplat_jax.surfel import (  # noqa: E402
     normal_consistency_loss,
     render_surfels,
 )
-from mojosplat_tpu.utils import save_gaussian_ply, save_png  # noqa: E402
+from mojosplat_jax.utils import save_gaussian_ply, save_png  # noqa: E402
+from mojosplat_jax.utils.runtime import enable_compile_cache  # noqa: E402
 
 
 def init_surfels(key, n, position_scale=1.0):
@@ -59,20 +60,12 @@ def main():
                     help="2DGS depth-distortion regularizer weight")
     ap.add_argument("--steps-per-call", type=int, default=25)
     ap.add_argument("--out-dir", default="output/train_surfel_demo")
-    ap.add_argument(
-        "--impl", default="xla", choices=["xla", "pallas"],
-        help="pallas = the surfel TPU kernels (full surface: the aux kernel "
-        "variant renders the depth/normal/distortion maps the regularizers "
-        "need, so both impls train with the same loss)",
-    )
     args = ap.parse_args()
+    enable_compile_cache()
     os.makedirs(args.out_dir, exist_ok=True)
 
     H, W = args.height, args.width
-    config = RenderConfig(
-        tile_capacity=256, chunk_size=32, raster_impl=args.impl,
-        pallas_interpret=(jax.default_backend() == "cpu"),
-    )
+    config = RenderConfig(tile_capacity=256, chunk_size=32)
 
     def make_cam(i):
         angle = 2.0 * 3.14159 * i / args.views

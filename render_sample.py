@@ -17,8 +17,9 @@ import time
 import jax
 import jax.numpy as jnp
 
-from mojosplat_tpu import Camera, RenderConfig, look_at, render_gaussians
-from mojosplat_tpu.utils import save_png
+from mojosplat_jax import Camera, RenderConfig, look_at, render_gaussians
+from mojosplat_jax.utils import save_png
+from mojosplat_jax.utils.runtime import enable_compile_cache
 
 
 def main():
@@ -30,7 +31,7 @@ def main():
     ap.add_argument("--out", default="output/render_example.png")
     ap.add_argument(
         "--impl", default="xla", choices=["xla", "pallas"],
-        help="rasterizer implementation (pallas = TPU kernels)",
+        help="rasterizer route (pallas = the GPU kernels)",
     )
     ap.add_argument(
         "--ply", default=None,
@@ -43,6 +44,7 @@ def main():
         help="also save a normalized expected-depth map next to --out",
     )
     args = ap.parse_args()
+    enable_compile_cache()
 
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
 
@@ -61,7 +63,7 @@ def main():
 
     sh_degree = args.sh_degree
     if args.ply is not None:
-        from mojosplat_tpu.utils import load_gaussian_ply
+        from mojosplat_jax.utils import load_gaussian_ply
 
         print(f"Loading 3DGS scene from {args.ply}...")
         raw = load_gaussian_ply(args.ply)
@@ -94,8 +96,8 @@ def main():
         tile_batch=512, max_tile_span=64, tile_capacity=1024,
         raster_impl=args.impl,
     )
-    # The camera is a jit argument, not a closure constant (closure-captured
-    # device buffers disable this machine's fast dispatch path).
+    # The camera is a jit argument, not a closure constant: a new view
+    # never recompiles.
     render = jax.jit(
         lambda m, s, q, o, c, cam: render_gaussians(
             m, s, q, o, c, cam,

@@ -16,7 +16,7 @@ and examples/eval_colmap.py scores the result. (The reference has no
 dataset tooling at all; its only scene source is a random cloud,
 /root/reference/render_sample.py:86-109.)
 
-Run on the TPU (cwd=/root/repo):
+Run on a GPU from the repository root:
   python -c "import runpy; runpy.run_path('scripts/make_synth_colmap.py', run_name='__main__')"
 """
 
@@ -29,9 +29,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils import save_gaussian_ply, save_png
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils import save_gaussian_ply, save_png
 
 # Env-overridable so round-5's HD capture (960x540, richer content, more
 # views — the trained-scene bench preset's source) reuses this generator
@@ -205,8 +205,7 @@ def main():
     fx = 0.72 * W
     cams = ring_cameras()
     config = RenderConfig(tile_capacity=512, chunk_size=64, tile_batch=512,
-                          max_tile_span=8, raster_impl="pallas",
-                          pallas_chunk=128, pallas_tiles_per_step=8)
+                          max_tile_span=8, raster_impl="pallas")
 
     @jax.jit
     def render(p, cam):
@@ -245,7 +244,7 @@ def main():
                  obs_per_view, pts_xyz, pts_rgb)
 
     # Round-trip sanity through the production loader.
-    from mojosplat_tpu.utils import colmap as cm
+    from mojosplat_jax.utils import colmap as cm
 
     scene = cm.load_scene(os.path.join(OUT, "sparse", "0"),
                           with_points2d=True)

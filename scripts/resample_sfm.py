@@ -4,8 +4,8 @@ Rewrites ``output/synth_scene/sparse/0`` (points3D.bin + the per-image 2D
 observations inside images.bin) from the capture's ground-truth PLY at a
 higher point count, leaving the rendered images untouched. Used to seed
 the round-4 training artifact with a >=100k-point COLMAP init (the
-original capture wrote 30k). Pure CPU — no TPU dispatch — so it can run
-while the device is busy.
+original capture wrote 30k). Pure numpy on the host: it never touches the
+device.
 
   python -c "import runpy; runpy.run_path('scripts/resample_sfm.py', run_name='__main__')"
 """
@@ -18,8 +18,8 @@ import numpy as np
 
 sys.path.insert(0, os.getcwd())
 
-from mojosplat_tpu.utils import load_gaussian_ply  # noqa: E402
-from mojosplat_tpu.utils import colmap as cm  # noqa: E402
+from mojosplat_jax.utils import load_gaussian_ply  # noqa: E402
+from mojosplat_jax.utils import colmap as cm  # noqa: E402
 
 # Env-overridable (round 5: reseed the HD capture at 1M points for the
 # fixed-capacity trained-scene run).

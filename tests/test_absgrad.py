@@ -12,14 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
 
 CFG_KW = dict(tile_capacity=128, chunk_size=64, max_tile_span=4)
 CFG_XLA = RenderConfig(**CFG_KW)
-CFG_PALLAS = RenderConfig(
-    **CFG_KW, raster_impl="pallas", pallas_chunk=128, pallas_interpret=True
-)
+CFG_PALLAS = RenderConfig(**CFG_KW, raster_impl="pallas",
+                          pallas_interpret=True)
 
 
 def make_scene(n=60, seed=2):
@@ -135,7 +134,7 @@ def test_absgrad_xla_sink_does_not_change_forward():
 
 
 def test_train_step_with_densify_stats_absgrad():
-    from mojosplat_tpu.densify import DensifyState
+    from mojosplat_jax.densify import DensifyState
 
     n = 40
     raw = mtrain.init_gaussians(jax.random.PRNGKey(0), n, position_scale=1.0)

@@ -1,8 +1,8 @@
-"""Bilateral-grid appearance correction (mojosplat_tpu/bilagrid.py).
+"""Bilateral-grid appearance correction (mojosplat_jax/bilagrid.py).
 
-The gsplat-ecosystem lib_bilagrid capability, reformulated gather-free for
-TPU (spatial dims via jax.image.resize, guidance dim via a static
-hat-weight loop). No reference analogue (forward-only renderer, no
+The gsplat-ecosystem lib_bilagrid capability, reformulated gather-free
+(spatial dims via jax.image.resize, guidance dim via a static hat-weight
+loop). No reference analogue (forward-only renderer, no
 appearance module)."""
 
 import numpy as np
@@ -10,7 +10,7 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from mojosplat_tpu import (
+from mojosplat_jax import (
     apply_bilateral_grid,
     bilateral_grid_tv,
     identity_bilateral_grid,

@@ -6,15 +6,15 @@ empty inputs, boundary gaussians, multiple tile sizes — plus the checks the
 reference omits or leaves broken: an actual depth-ordering assertion (the
 reference computes but never asserts it, test_binning.py:103-131), a brute
 force per-tile membership oracle, and the static-shape budget semantics
-(span truncation, capacity overflow) unique to this TPU design.
+(span truncation, capacity overflow) unique to this static-shape design.
 """
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mojosplat_tpu import RenderConfig
-from mojosplat_tpu.ops.binning import (
+from mojosplat_jax import RenderConfig
+from mojosplat_jax.ops.binning import (
     bin_gaussians_to_tiles,
     isect_capacity,
     num_tiles,
@@ -178,27 +178,24 @@ def test_capacity_overflow_counted():
 
 
 def test_overflow_drops_farthest_and_routes_agree():
-    # Under capacity overflow both routes must keep the NEAREST
-    # intersections (depth-prioritized truncation) and agree exactly.
+    # Under capacity overflow binning must keep the NEAREST intersections
+    # (depth-prioritized truncation), with every kept slot still sorted by
+    # (tile, depth). The kernel route and the XLA route share this binning.
     rng = np.random.RandomState(7)
     n = 64
     means = rng.uniform(0, 64, (n, 2))
     radii = np.full((n, 2), 9)  # ~4 tiles each at ts=16
     depths = rng.uniform(1.0, 10.0, n)
     cap = 32  # far below the real intersection count
-    cfg_p = RenderConfig(
-        raster_impl="pallas", pallas_interpret=True
-    )
     rx = run_binning(means, radii, depths, 64, 64, config=CFG, capacity=cap)
-    rp = run_binning(means, radii, depths, 64, 64, config=cfg_p, capacity=cap)
     assert int(rx.aux.capacity_overflow) > 0
-    assert np.array_equal(np.asarray(rx.tile_ids), np.asarray(rp.tile_ids))
-    assert np.array_equal(
-        np.asarray(rx.gaussian_ids), np.asarray(rp.gaussian_ids)
-    )
-    assert np.array_equal(
-        np.asarray(rx.tile_ranges), np.asarray(rp.tile_ranges)
-    )
+    tiles = np.asarray(rx.tile_ids)
+    gids = np.asarray(rx.gaussian_ids)
+    real = gids >= 0
+    assert np.all(np.diff(tiles) >= 0)
+    for t in np.unique(tiles[real]):
+        d = depths[gids[real & (tiles == t)]]
+        assert np.all(np.diff(d) >= 0)
     # Every kept gaussian is nearer than every dropped one.
     kept = set(int(g) for g in np.asarray(rx.gaussian_ids) if g >= 0)
     order = np.argsort(depths, kind="stable")

@@ -8,8 +8,8 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from mojosplat_tpu import Camera, look_at
-from mojosplat_tpu.utils.blender import load_blender_scene
+from mojosplat_jax import Camera, look_at
+from mojosplat_jax.utils.blender import load_blender_scene
 
 
 def wc_to_c2w_gl(R, T):
@@ -87,8 +87,8 @@ def test_alpha_composites_onto_background(tmp_path):
 def test_camera_points_at_scene_center(tmp_path):
     # A loaded camera must look AT the target: the target projects to the
     # principal point with positive depth (validates the +Z-forward flip).
-    from mojosplat_tpu.ops.projection import project_gaussians
-    from mojosplat_tpu import RenderConfig
+    from mojosplat_jax.ops.projection import project_gaussians
+    from mojosplat_jax import RenderConfig
 
     eye = jnp.array([1.5, -0.7, 2.2])
     R, T = look_at(eye=eye, target=jnp.zeros(3),

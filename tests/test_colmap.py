@@ -13,8 +13,8 @@ import struct
 import numpy as np
 import pytest
 
-from mojosplat_tpu.native import get_native
-from mojosplat_tpu.utils import colmap as cm
+from mojosplat_jax.native import get_native
+from mojosplat_jax.utils import colmap as cm
 
 
 @pytest.fixture(scope="module")
@@ -195,8 +195,8 @@ def test_renders_from_colmap_camera(sparse_dir):
     """End-to-end: a COLMAP-initialized scene renders through the pipeline."""
     import jax.numpy as jnp
 
-    from mojosplat_tpu import RenderConfig, render_gaussians
-    from mojosplat_tpu import train as mtrain
+    from mojosplat_jax import RenderConfig, render_gaussians
+    from mojosplat_jax import train as mtrain
 
     d, _, _ = sparse_dir
     scene = cm.load_scene(str(d))
@@ -283,7 +283,7 @@ def test_sparse_depth_loss_math():
     import jax
     import jax.numpy as jnp
 
-    from mojosplat_tpu.train import sparse_depth_loss
+    from mojosplat_jax.train import sparse_depth_loss
 
     H, W = 16, 24
     # Fully covered render whose expected depth is 2.0 everywhere.

@@ -9,9 +9,9 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils.compress import (
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils.compress import (
     compress_scene,
     load_compressed_scene,
     morton_order,

@@ -10,9 +10,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.densify import (
+from mojosplat_jax import Camera, RenderConfig
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.densify import (
     DEAD_LOGIT,
     DensifyConfig,
     DensifyState,
@@ -106,7 +106,7 @@ class TestTrainingIntegration:
         p = mtrain.activate(dict(params))
         cam = Camera.create(R=jnp.eye(3), T=jnp.zeros(3), H=32, W=32,
                             fx=40.0, fy=40.0, cx=16.0, cy=16.0)
-        from mojosplat_tpu import render_gaussians
+        from mojosplat_jax import render_gaussians
 
         cfg = RenderConfig(tile_capacity=128, chunk_size=64, max_tile_span=4)
         img_padded = render_gaussians(
@@ -149,7 +149,7 @@ class TestTrainingIntegration:
 # MCMC density control
 # ---------------------------------------------------------------------------
 
-from mojosplat_tpu.densify import (  # noqa: E402
+from mojosplat_jax.densify import (  # noqa: E402
     MCMCConfig,
     mcmc_position_noise,
     mcmc_regularization,
@@ -270,7 +270,7 @@ def test_mcmc_relocate_strict_noop_when_all_dead():
 
 
 def test_reset_opacities():
-    from mojosplat_tpu.densify import DEAD_LOGIT, reset_opacities
+    from mojosplat_jax.densify import DEAD_LOGIT, reset_opacities
 
     p = small_params(n=8)
     p["opacities_raw"] = jnp.array(
@@ -322,7 +322,7 @@ class TestSurfelDensityControl:
         assert int(metrics["alive"]) >= 12
 
     def test_mcmc_relocate_and_noise_surfels(self):
-        from mojosplat_tpu.densify import (
+        from mojosplat_jax.densify import (
             mcmc_position_noise,
             mcmc_regularization,
             mcmc_relocate,
@@ -343,7 +343,7 @@ class TestSurfelDensityControl:
         # Noise must stay ~in the disk plane: displacement along the surfel
         # normal is ~1e-6-scaled.
         disp = np.asarray(noised["means3d"] - new_p["means3d"])
-        from mojosplat_tpu.densify import _quat_to_rotmat
+        from mojosplat_jax.densify import _quat_to_rotmat
 
         q = new_p["quats"] / jnp.linalg.norm(
             new_p["quats"], axis=-1, keepdims=True

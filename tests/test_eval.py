@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils import save_gaussian_ply, save_png
-from mojosplat_tpu.utils.colmap import qvec_to_rotmat
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils import save_gaussian_ply, save_png
+from mojosplat_jax.utils.colmap import qvec_to_rotmat
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from mojosplat_tpu import train as mtrain
+from mojosplat_jax import train as mtrain
 
 
 def test_identity_exposure_is_noop():

@@ -13,13 +13,13 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu.parallel import (
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax.parallel import (
     make_gauss_mesh,
     render_gaussians_sharded,
     train_step_gauss_sharded,
 )
-from mojosplat_tpu import train as mtrain
+from mojosplat_jax import train as mtrain
 
 CFG = RenderConfig(tile_capacity=64, chunk_size=32, max_tile_span=4)
 H, W = 128, 64  # 8 tile rows -> one per device
@@ -44,15 +44,15 @@ def test_gauss_sharded_render_matches_single_device():
     params = scene(64, seed=1)
     cam = camera()
 
-    img_sharded, aux = render_gaussians_sharded(
-        params, cam, mesh, config=CFG, return_aux=True,
+    img_sharded, aux = jax.jit(lambda p, c: render_gaussians_sharded(
+        p, c, mesh, config=CFG, return_aux=True,
         background_color=jnp.array([0.2, 0.1, 0.0]),
-    )
-    img_ref = render_gaussians(
-        params["means3d"], params["scales"], params["quats"],
-        params["opacities"], params["features"], cam, config=CFG,
+    ))(params, cam)
+    img_ref = jax.jit(lambda p, c: render_gaussians(
+        p["means3d"], p["scales"], p["quats"], p["opacities"],
+        p["features"], c, config=CFG,
         background_color=jnp.array([0.2, 0.1, 0.0]),
-    )
+    ))(params, cam)
     np.testing.assert_allclose(
         np.asarray(img_sharded), np.asarray(img_ref), atol=1e-6, rtol=1e-6
     )
@@ -65,14 +65,13 @@ def test_gauss_sharded_render_sh_degrees():
     mesh = make_gauss_mesh(8)
     params = scene(64, seed=2, sh_degree=2)
     cam = camera()
-    img_sharded = render_gaussians_sharded(
-        params, cam, mesh, sh_degree=2, config=CFG
-    )
-    img_ref = render_gaussians(
-        params["means3d"], params["scales"], params["quats"],
-        params["opacities"], params["features"], cam, sh_degree=2,
-        config=CFG,
-    )
+    img_sharded = jax.jit(lambda p, c: render_gaussians_sharded(
+        p, c, mesh, sh_degree=2, config=CFG
+    ))(params, cam)
+    img_ref = jax.jit(lambda p, c: render_gaussians(
+        p["means3d"], p["scales"], p["quats"], p["opacities"],
+        p["features"], c, sh_degree=2, config=CFG,
+    ))(params, cam)
     np.testing.assert_allclose(
         np.asarray(img_sharded), np.asarray(img_ref), atol=1e-6, rtol=1e-6
     )
@@ -92,7 +91,7 @@ def test_gauss_sharded_grads_match_replicated():
         img = render_gaussians_sharded(p, cam, mesh, config=CFG)
         return jnp.mean((img - tgt) ** 2)
 
-    g_sharded = jax.grad(loss_sharded)(params, cam, tgt)
+    g_sharded = jax.jit(jax.grad(loss_sharded))(params, cam, tgt)
 
     def loss_ref(p, cam, tgt):
         img = render_gaussians(
@@ -101,7 +100,7 @@ def test_gauss_sharded_grads_match_replicated():
         )
         return jnp.mean((img - tgt) ** 2)
 
-    g_ref = jax.grad(loss_ref)(params, cam, tgt)
+    g_ref = jax.jit(jax.grad(loss_ref))(params, cam, tgt)
     for k in g_ref:
         np.testing.assert_allclose(
             np.asarray(g_sharded[k]), np.asarray(g_ref[k]),
@@ -125,9 +124,9 @@ def test_gauss_sharded_train_step_matches_unsharded():
         params=raw, opt_state=optimizer.init(raw),
         step=jnp.zeros((), jnp.int32),
     )
-    new_state, loss = train_step_gauss_sharded(
-        state, cam, tgt, optimizer, mesh, sh_degree=1, config=CFG
-    )
+    new_state, loss = jax.jit(lambda s, c, t: train_step_gauss_sharded(
+        s, c, t, optimizer, mesh, sh_degree=1, config=CFG
+    ))(state, cam, tgt)
 
     # Unsharded reference: same loss (sum of squares / element count), same
     # optimizer, replicated params.
@@ -139,7 +138,7 @@ def test_gauss_sharded_train_step_matches_unsharded():
         )
         return jnp.sum((img - tgt) ** 2) / tgt.size
 
-    ref_loss, g = jax.value_and_grad(loss_fn)(raw)
+    ref_loss, g = jax.jit(jax.value_and_grad(loss_fn))(raw)
     updates, _ = optimizer.update(g, optimizer.init(raw), raw)
     ref_params = optax.apply_updates(raw, updates)
 
@@ -165,12 +164,11 @@ def test_gauss_sharded_adam_moments_sharded_step():
         params=raw, opt_state=optimizer.init(raw),
         step=jnp.zeros((), jnp.int32),
     )
-    s1, loss1 = train_step_gauss_sharded(
-        state, cam, tgt, optimizer, mesh, sh_degree=1, config=CFG
-    )
-    s2, loss2 = train_step_gauss_sharded(
-        s1, cam, tgt, optimizer, mesh, sh_degree=1, config=CFG
-    )
+    step = jax.jit(lambda s, c, t: train_step_gauss_sharded(
+        s, c, t, optimizer, mesh, sh_degree=1, config=CFG
+    ))
+    s1, loss1 = step(state, cam, tgt)
+    s2, loss2 = step(s1, cam, tgt)
     assert np.isfinite(float(loss1)) and np.isfinite(float(loss2))
     assert float(loss2) < float(loss1)
     assert int(s2.step) == 2
@@ -188,11 +186,14 @@ def test_gauss_sharded_pallas_receiver():
     cam = camera()
     cfg_p = RenderConfig(
         tile_capacity=128, chunk_size=32, max_tile_span=4,
-        raster_impl="pallas", pallas_chunk=128, pallas_interpret=True,
+        raster_impl="pallas", pallas_interpret=True,
     )
     cfg_x = RenderConfig(tile_capacity=128, chunk_size=32, max_tile_span=4)
-    img_p = render_gaussians_sharded(params, cam, mesh, config=cfg_p)
-    img_x = render_gaussians_sharded(params, cam, mesh, config=cfg_x)
+    img_p, img_x = (
+        jax.jit(lambda p, c: render_gaussians_sharded(p, c, mesh, config=cfg))(
+            params, cam)
+        for cfg in (cfg_p, cfg_x)
+    )
     np.testing.assert_allclose(
         np.asarray(img_p), np.asarray(img_x), atol=3e-5
     )
@@ -210,9 +211,9 @@ def test_gauss_sharded_route_overflow_counted():
         jnp.zeros((n, 3)).at[:, 2].set(2.0).at[:, 1].add(-0.35)
     )
     params["scales"] = jnp.full((n, 3), jnp.log(0.05))
-    _, aux = render_gaussians_sharded(
-        params, camera(), mesh, config=CFG, return_aux=True
-    )
+    _, aux = jax.jit(lambda p, c: render_gaussians_sharded(
+        p, c, mesh, config=CFG, return_aux=True
+    ))(params, camera())
     assert int(aux.route_overflow) > 0
 
 
@@ -254,20 +255,22 @@ def test_gauss_sharded_trains_through_route_overflow():
         jnp.linspace(0.1, 0.9, W)[None, :, None], (H, 1, 3)
     ).astype(jnp.float32)
 
-    _, aux = render_gaussians_sharded(
-        mtrain.activate(params_r), cam, mesh, config=CFG, return_aux=True
-    )
+    _, aux = jax.jit(lambda p, c: render_gaussians_sharded(
+        p, c, mesh, config=CFG, return_aux=True
+    ))(mtrain.activate(params_r), cam)
     assert int(aux.route_overflow) > 0, (
         "window squeeze failed to produce overflow — test is vacuous"
     )
 
     optimizer = mtrain.make_optimizer(5e-2)
     state = mtrain.init_train_state(params_r, optimizer)
+    # One compiled step reused: an eager call re-traces the shard_map.
+    step = jax.jit(lambda s, c, t: train_step_gauss_sharded(
+        s, c, t, optimizer, mesh, config=CFG
+    ))
     losses = []
     for _ in range(8):
-        state, loss = train_step_gauss_sharded(
-            state, cam, target, optimizer, mesh, config=CFG
-        )
+        state, loss = step(state, cam, target)
         losses.append(float(loss))
     for k, v in state.params.items():
         assert bool(jnp.all(jnp.isfinite(v))), f"non-finite {k}"

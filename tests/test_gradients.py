@@ -1,8 +1,9 @@
 """Backward-pass tests — the capability the reference lacks entirely
 (render_gaussians is @torch.no_grad(), /root/reference/mojosplat/render.py:11;
 README.md:145 lists the backward as future work). Strategy per SURVEY.md
-section 4: finite-difference gradient checks plus determinism (gradient
-accumulation must be deterministic — no atomics on TPU).
+section 4: finite-difference gradient checks plus determinism on the CPU
+(on a GPU the scatter-add that routes per-slot gradients to gaussians uses
+atomics, whose order changes from run to run).
 """
 
 import jax
@@ -10,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu.ops.sh import num_sh_bases
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax.ops.sh import num_sh_bases
 
 CFG = RenderConfig(tile_capacity=128, chunk_size=32)
 

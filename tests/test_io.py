@@ -10,10 +10,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.native import get_native
-from mojosplat_tpu.utils.image import save_png
-from mojosplat_tpu.utils.ply import (
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.native import get_native
+from mojosplat_jax.utils.image import save_png
+from mojosplat_jax.utils.ply import (
     _read_ply_python,
     load_gaussian_ply,
     save_gaussian_ply,
@@ -57,7 +57,7 @@ def test_ply_rgb_features_saved_as_sh0(tmp_path):
     back = load_gaussian_ply(path)
     assert back["features"].shape == (8, 1, 3)
     # sh_to_color at degree 0 must reproduce the original RGB.
-    from mojosplat_tpu.ops.sh import sh_to_color
+    from mojosplat_jax.ops.sh import sh_to_color
 
     col = sh_to_color(
         back["features"], back["means3d"], np.zeros(3), 0
@@ -105,7 +105,7 @@ def test_png_native_matches_pil_bytes(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_splat_round_trip(tmp_path):
-    from mojosplat_tpu.utils.splat import (
+    from mojosplat_jax.utils.splat import (
         load_gaussian_splat,
         save_gaussian_splat,
     )
@@ -133,8 +133,8 @@ def test_splat_round_trip(tmp_path):
 def test_splat_renders_like_source(tmp_path):
     # A saved+reloaded .splat must render close to the original scene
     # (u8 color/rotation quantization bounds the error).
-    from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-    from mojosplat_tpu.utils.splat import (
+    from mojosplat_jax import Camera, RenderConfig, render_gaussians
+    from mojosplat_jax.utils.splat import (
         load_gaussian_splat,
         save_gaussian_splat,
     )
@@ -165,7 +165,7 @@ def test_splat_renders_like_source(tmp_path):
 
 def test_surfel_ply_round_trip(tmp_path):
     # 2DGS layout: two scale columns.
-    from mojosplat_tpu.utils.ply import load_gaussian_ply, save_gaussian_ply
+    from mojosplat_jax.utils.ply import load_gaussian_ply, save_gaussian_ply
 
     rng = np.random.default_rng(8)
     p = dict(
@@ -188,7 +188,7 @@ def test_encode_png_roundtrip():
     from PIL import Image
     import io as _io
 
-    from mojosplat_tpu.utils.image import encode_png
+    from mojosplat_jax.utils.image import encode_png
 
     rng = np.random.default_rng(4)
     arr = rng.integers(0, 255, (20, 31, 3), dtype=np.uint8)

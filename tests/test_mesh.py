@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, look_at
-from mojosplat_tpu.surfel import render_surfels
-from mojosplat_tpu.utils.mesh import (
+from mojosplat_jax import Camera, RenderConfig, look_at
+from mojosplat_jax.surfel import render_surfels
+from mojosplat_jax.utils.mesh import (
     marching_tetrahedra,
     save_mesh_obj,
     save_mesh_ply,

@@ -22,7 +22,7 @@ sys.path.insert(0, os.getcwd())
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from mojosplat_tpu.parallel import init_multihost, is_primary
+from mojosplat_jax.parallel import init_multihost, is_primary
 
 ran = init_multihost()
 assert ran is True, "explicit env contract set but initialize did not run"

@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from mojosplat_tpu import (
+from mojosplat_jax import (
     Camera,
     RenderConfig,
     apply_pose_delta,
     render_gaussians,
 )
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.camera import _rodrigues
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.camera import _rodrigues
 
 CFG = RenderConfig(tile_capacity=64, chunk_size=32)
 
@@ -132,7 +132,7 @@ def test_pose_and_param_grads_finite_with_dead_padded_slots():
     # image is fine. Dead zero-padded slots sit exactly at the origin
     # (z = 0, zero SH view direction) — both the EWA 1/z^2 overflow and the
     # normalize(0) SH direction had to be input-sanitized.
-    from mojosplat_tpu.densify import pad_to_capacity
+    from mojosplat_jax.densify import pad_to_capacity
 
     raw = mtrain.init_gaussians(
         jax.random.PRNGKey(1), 20, sh_degree=1, position_scale=0.5

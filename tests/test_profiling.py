@@ -5,12 +5,17 @@ import os
 import jax
 import jax.numpy as jnp
 
-from mojosplat_tpu.utils.profiling import (
+import pytest
+
+from mojosplat_jax.utils.profiling import (
     CHIP_PEAKS,
     annotate,
+    chip_peaks,
     roofline_report,
     trace,
 )
+
+H100 = "NVIDIA H100 80GB HBM3"
 
 
 def test_roofline_headline_shape():
@@ -22,12 +27,12 @@ def test_roofline_headline_shape():
         n_gaussians=1_000_000,
         sh_bases=16,
         backward=True,
-        chip="v5e",
+        device_kind=H100,
     )
     assert r.pixels_per_s > 10e6
     assert 0.0 < r.fraction_of_light <= 1.0
     assert r.light_speed_ms == max(r.hbm_bound_ms, r.flop_bound_ms)
-    # The blend is VPU-bound at this shape, not HBM-bound.
+    # The blend is compute-bound at this shape, not HBM-bound.
     assert r.flop_bound_ms > r.hbm_bound_ms
     d = r.as_dict()
     assert set(d) >= {"pixels_per_s", "step_ms", "fraction_of_light"}
@@ -38,7 +43,7 @@ def test_roofline_forward_cheaper_than_backward():
         n_pixels=800 * 600,
         n_isects=500_000,
         n_gaussians=100_000,
-        chip="v5e",
+        device_kind=H100,
     )
     fwd = roofline_report(step_ms=10.0, backward=False, **kw)
     bwd = roofline_report(step_ms=10.0, backward=True, **kw)
@@ -47,13 +52,22 @@ def test_roofline_forward_cheaper_than_backward():
 
 
 def test_roofline_all_chips_defined():
-    for chip, peaks in CHIP_PEAKS.items():
-        assert {"bf16_tflops", "vpu_tflops", "hbm_gbps"} <= set(peaks)
+    for kind, peaks in CHIP_PEAKS.items():
+        assert {"bf16_tflops", "fp32_tflops", "hbm_gbps"} <= set(peaks)
         r = roofline_report(
             step_ms=100.0, n_pixels=1000, n_isects=1000,
-            n_gaussians=1000, chip=chip,
+            n_gaussians=1000, device_kind=kind,
         )
         assert r.light_speed_ms > 0
+
+
+@pytest.mark.parametrize("kind", ["cpu", "NVIDIA A100-SXM4-80GB", "NVIDIA H200"])
+def test_unknown_device_has_no_peaks(kind):
+    with pytest.raises(ValueError, match="no published peaks"):
+        chip_peaks(kind)
+    with pytest.raises(ValueError, match="no published peaks"):
+        roofline_report(step_ms=1.0, n_pixels=1, n_isects=1, n_gaussians=1,
+                        device_kind=kind)
 
 
 def test_trace_capture_writes_profile(tmp_path):

@@ -16,8 +16,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig
-from mojosplat_tpu.ops.projection import (
+from mojosplat_jax import Camera, RenderConfig
+from mojosplat_jax.ops.projection import (
     project_gaussians,
     quat_scale_to_covar,
     quat_to_rotmat,
@@ -488,7 +488,7 @@ def test_unscented_gradients_flow():
 
 
 def test_unscented_end_to_end_render():
-    from mojosplat_tpu import render_gaussians
+    from mojosplat_jax import render_gaussians
 
     rng = np.random.default_rng(3)
     n = 100
@@ -524,7 +524,7 @@ def test_unscented_end_to_end_render():
 def test_unscented_grads_finite_with_behind_camera_gaussians():
     # Regression: behind-camera sigma points must not leak NaN into the
     # full render gradient (double-where input sanitization).
-    from mojosplat_tpu import render_gaussians
+    from mojosplat_jax import render_gaussians
 
     rng = np.random.default_rng(4)
     n = 200
@@ -593,7 +593,7 @@ def test_radial_distortion_moves_points_outward():
 
 
 def test_colmap_distortion_mapping():
-    from mojosplat_tpu.utils.colmap import ColmapCamera, camera_intrinsics
+    from mojosplat_jax.utils.colmap import ColmapCamera, camera_intrinsics
 
     cam = ColmapCamera(1, 2, 640, 480,
                        np.array([500.0, 320.0, 240.0, 0.05]))

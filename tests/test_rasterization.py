@@ -20,10 +20,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig
-from mojosplat_tpu.ops.binning import bin_gaussians_to_tiles
-from mojosplat_tpu.ops.projection import project_gaussians
-from mojosplat_tpu.ops.rasterization import (
+from mojosplat_jax import Camera, RenderConfig
+from mojosplat_jax.ops.binning import bin_gaussians_to_tiles
+from mojosplat_jax.ops.projection import project_gaussians
+from mojosplat_jax.ops.rasterization import (
     rasterize_dense_oracle,
     rasterize_gaussians,
 )

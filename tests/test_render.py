@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu.ops.sh import num_sh_bases
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax.ops.sh import num_sh_bases
 
 CFG = RenderConfig(tile_capacity=128, chunk_size=32)
 

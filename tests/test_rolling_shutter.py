@@ -13,8 +13,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu.ops.projection import project_gaussians
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax.ops.projection import project_gaussians
 
 H, W = 240, 320
 FX = FY = 200.0

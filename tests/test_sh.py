@@ -8,7 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu.ops.sh import eval_sh, num_sh_bases, sh_to_color
+from mojosplat_jax.ops.sh import eval_sh, num_sh_bases, sh_to_color
 
 C0 = 0.28209479177387814
 C1 = 0.4886025119029199
@@ -98,7 +98,7 @@ def test_differentiable_wrt_coeffs_and_means():
 
 
 def test_mask_sh_bands_progressive_warmup():
-    from mojosplat_tpu.ops.sh import mask_sh_bands, num_sh_bases
+    from mojosplat_jax.ops.sh import mask_sh_bands, num_sh_bases
 
     feats = jnp.ones((5, 16, 3))
     for deg in range(4):

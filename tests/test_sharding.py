@@ -10,14 +10,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu.parallel import (
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax.parallel import (
     make_mesh,
     project_gaussians_sharded,
     render_batch_sharded,
 )
-from mojosplat_tpu.ops.projection import project_gaussians
-from mojosplat_tpu import train as mtrain
+from mojosplat_jax.ops.projection import project_gaussians
+from mojosplat_jax import train as mtrain
 
 CFG = RenderConfig(tile_capacity=64, chunk_size=32)
 
@@ -64,6 +64,14 @@ def single_camera(cams, i):
     )
 
 
+def jit_render(render=render_gaussians, **kw):
+    """Jitted single-camera render: an eager call dispatches every op."""
+    return jax.jit(lambda p, cam: render(
+        p["means3d"], p["scales"], p["quats"], p["opacities"],
+        p["features"], cam, config=CFG, **kw,
+    ))
+
+
 def test_eight_devices_available():
     assert len(jax.devices()) == 8
 
@@ -75,16 +83,14 @@ def test_sharded_render_matches_single_device():
     raw = scene_params(48, seed=1)
     params = mtrain.activate(raw)
 
-    sharded = render_batch_sharded(params, cams, mesh, config=CFG)
+    sharded = jax.jit(lambda p, c: render_batch_sharded(
+        p, c, mesh, config=CFG))(params, cams)
     sharded = np.asarray(sharded)
     assert sharded.shape == (B, 64, 64, 3)
 
+    ref_fn = jit_render()
     for i in range(B):
-        ref = render_gaussians(
-            params["means3d"], params["scales"], params["quats"],
-            params["opacities"], params["features"], single_camera(cams, i),
-            config=CFG,
-        )
+        ref = ref_fn(params, single_camera(cams, i))
         np.testing.assert_allclose(sharded[i], np.asarray(ref), atol=1e-5,
                                    rtol=1e-5)
 
@@ -95,14 +101,13 @@ def test_sharded_projection_matches_single_device():
     cam = single_camera(cams, 0)
     raw = scene_params(64, seed=2)
     params = mtrain.activate(raw)
-    a = project_gaussians_sharded(
-        params["means3d"], params["scales"], params["quats"],
-        params["opacities"], cam, mesh, config=CFG,
-    )
-    b = project_gaussians(
-        params["means3d"], params["scales"], params["quats"],
-        params["opacities"], cam, CFG,
-    )
+    a = jax.jit(lambda p, c: project_gaussians_sharded(
+        p["means3d"], p["scales"], p["quats"], p["opacities"], c, mesh,
+        config=CFG,
+    ))(params, cam)
+    b = jax.jit(lambda p, c: project_gaussians(
+        p["means3d"], p["scales"], p["quats"], p["opacities"], c, CFG,
+    ))(params, cam)
     for x, y in zip(a, b):
         np.testing.assert_allclose(np.asarray(x), np.asarray(y), atol=1e-6)
 
@@ -116,12 +121,12 @@ def test_sharded_train_step_matches_single_device():
     state = mtrain.init_train_state(raw, opt)
     targets = jnp.zeros((B, 64, 64, 3))
 
-    s_single, loss_single = mtrain.train_step(
-        state, cams, targets, opt, config=CFG
-    )
-    s_shard, loss_shard = mtrain.train_step_sharded(
-        state, cams, targets, opt, mesh, config=CFG
-    )
+    s_single, loss_single = jax.jit(lambda s, c, t: mtrain.train_step(
+        s, c, t, opt, config=CFG
+    ))(state, cams, targets)
+    s_shard, loss_shard = jax.jit(lambda s, c, t: mtrain.train_step_sharded(
+        s, c, t, opt, mesh, config=CFG
+    ))(state, cams, targets)
     np.testing.assert_allclose(
         float(loss_shard), float(loss_single), rtol=1e-5
     )
@@ -165,7 +170,7 @@ def test_indivisible_height_raises():
 
 
 def test_sharded_train_step_with_mcmc_regularizer():
-    from mojosplat_tpu.densify import MCMCConfig, mcmc_regularization
+    from mojosplat_jax.densify import MCMCConfig, mcmc_regularization
 
     B = 2
     cams = batched_cameras(B, H=128)
@@ -204,7 +209,7 @@ def test_sharded_train_step_with_mcmc_regularizer():
 def test_render_batch_sharded_surfels():
     # The 2DGS family over the same ('data','tile') mesh: sharded slabs
     # must reassemble to the single-device surfel render.
-    from mojosplat_tpu.surfel import render_surfels
+    from mojosplat_jax.surfel import render_surfels
 
     B = 2
     cams = batched_cameras(B, H=128)
@@ -220,15 +225,12 @@ def test_render_batch_sharded_surfels():
         features=jnp.asarray(rng.uniform(0, 1, (n, 3)).astype(np.float32)),
     )
     mesh = make_mesh(2, 4)
-    imgs = render_batch_sharded(
-        params, cams, mesh, config=CFG, primitive="2dgs"
-    )
+    imgs = jax.jit(lambda p, c: render_batch_sharded(
+        p, c, mesh, config=CFG, primitive="2dgs"
+    ))(params, cams)
+    ref_fn = jit_render(render_surfels)
     for i in range(B):
-        ref = render_surfels(
-            params["means3d"], params["scales"], params["quats"],
-            params["opacities"], params["features"], single_camera(cams, i),
-            config=CFG,
-        )
+        ref = ref_fn(params, single_camera(cams, i))
         np.testing.assert_allclose(
             np.asarray(imgs[i]), np.asarray(ref), atol=2e-5
         )
@@ -239,7 +241,7 @@ def test_sharded_surfel_train_step_matches_single_device():
     # single-device step computing the identical global loss.
     import optax
 
-    from mojosplat_tpu.surfel import (
+    from mojosplat_jax.surfel import (
         normal_consistency_terms,
         render_surfels,
     )
@@ -265,10 +267,11 @@ def test_sharded_surfel_train_step_matches_single_device():
 
     mesh = make_mesh(2, 4)
     state = mtrain.init_train_state(raw, opt)
-    new_state, loss = mtrain.train_step_sharded_surfel(
-        state, cams, targets, opt, mesh, config=CFG,
-        normal_weight=nw, distortion_weight=dw,
-    )
+    new_state, loss = jax.jit(
+        lambda s, c, t: mtrain.train_step_sharded_surfel(
+            s, c, t, opt, mesh, config=CFG,
+            normal_weight=nw, distortion_weight=dw,
+        ))(state, cams, targets)
 
     # Single-device reference: same loss on full images.
     def loss_fn(params):
@@ -296,7 +299,7 @@ def test_sharded_surfel_train_step_matches_single_device():
         return (photo / targets.size + dw * dist / (targets.size // 3)
                 + nw * num / jnp.maximum(den, 1.0))
 
-    ref_loss, grads = jax.value_and_grad(loss_fn)(raw)
+    ref_loss, grads = jax.jit(jax.value_and_grad(loss_fn))(raw)
     updates, _ = opt.update(grads, opt.init(raw), raw)
     ref_params = optax.apply_updates(raw, updates)
 
@@ -327,10 +330,11 @@ def test_zero1_matches_replicated_update():
     out = {}
     for z in (False, True):
         state = mtrain.init_train_state(raw, opt)
+        step = jax.jit(lambda s, c, t, z=z: mtrain.train_step_sharded(
+            s, c, t, opt, mesh, config=CFG, zero1=z
+        ))
         for _ in range(2):  # two steps so sharded moments feed back in
-            state, loss = mtrain.train_step_sharded(
-                state, cams, targets, opt, mesh, config=CFG, zero1=z
-            )
+            state, loss = step(state, cams, targets)
         out[z] = (state, float(loss))
 
     assert abs(out[True][1] - out[False][1]) < 1e-7
@@ -369,10 +373,11 @@ def test_zero1_surfel_step_smoke():
     out = {}
     for z in (False, True):
         state = mtrain.init_train_state(raw, opt)
-        state, loss = mtrain.train_step_sharded_surfel(
-            state, cams, targets, opt, mesh, config=CFG,
-            normal_weight=0.05, distortion_weight=0.01, zero1=z,
-        )
+        state, loss = jax.jit(
+            lambda s, c, t, z=z: mtrain.train_step_sharded_surfel(
+                s, c, t, opt, mesh, config=CFG,
+                normal_weight=0.05, distortion_weight=0.01, zero1=z,
+            ))(state, cams, targets)
         out[z] = (state, float(loss))
     assert abs(out[True][1] - out[False][1]) < 1e-7
     for k in raw:
@@ -383,8 +388,8 @@ def test_zero1_surfel_step_smoke():
 
 
 def test_init_multihost_single_host_noop(monkeypatch):
-    from mojosplat_tpu.parallel import init_multihost, is_primary
-    from mojosplat_tpu.parallel import multihost
+    from mojosplat_jax.parallel import init_multihost, is_primary
+    from mojosplat_jax.parallel import multihost
 
     monkeypatch.delenv(multihost.ENV_COORD, raising=False)
     monkeypatch.delenv(multihost.ENV_NPROC, raising=False)
@@ -395,8 +400,8 @@ def test_init_multihost_single_host_noop(monkeypatch):
 
 
 def test_init_multihost_partial_env_rejected(monkeypatch):
-    from mojosplat_tpu.parallel import init_multihost
-    from mojosplat_tpu.parallel import multihost
+    from mojosplat_jax.parallel import init_multihost
+    from mojosplat_jax.parallel import multihost
 
     monkeypatch.setenv(multihost.ENV_COORD, "localhost:1234")
     monkeypatch.delenv(multihost.ENV_NPROC, raising=False)

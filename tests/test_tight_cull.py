@@ -16,9 +16,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.ops.binning import (
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.ops.binning import (
     _MASK_BITS,
     _tight_tile_masks,
     bin_gaussians_to_tiles,
@@ -50,8 +50,8 @@ def make_aniso_scene(n=400, seed=3):
 def config(tight, impl, **kw):
     base = dict(
         tile_size=16, tile_capacity=256, chunk_size=32, max_tile_span=8,
-        isect_padding_multiplier=40, raster_impl=impl, pallas_chunk=64,
-        pallas_tiles_per_step=2, pallas_interpret=(impl == "pallas"),
+        isect_padding_multiplier=40, raster_impl=impl,
+        pallas_interpret=(impl == "pallas"),
         tight_cull=tight,
     )
     base.update(kw)
@@ -113,7 +113,7 @@ def test_culled_slots_truly_contribute_zero():
     """Brute force: every candidate tile the mask rejects has peak alpha
     below threshold at EVERY pixel center of that tile (the conservative
     guarantee that makes culling lossless)."""
-    from mojosplat_tpu.ops.projection import project_gaussians
+    from mojosplat_jax.ops.projection import project_gaussians
 
     cam = make_camera()
     params = make_aniso_scene(n=120, seed=7)
@@ -125,7 +125,7 @@ def test_culled_slots_truly_contribute_zero():
     ts, span = cfg.tile_size, cfg.max_tile_span
     x, y = np.asarray(proj.means2d[:, 0]), np.asarray(proj.means2d[:, 1])
     radii = np.asarray(proj.radii)
-    from mojosplat_tpu.ops.binning import num_tiles
+    from mojosplat_jax.ops.binning import num_tiles
 
     th, tw = num_tiles(cam.H, cam.W, ts)
     tx_min = np.clip(np.floor((x - radii[:, 0]) / ts), 0, tw).astype(np.int32)
@@ -208,7 +208,7 @@ def test_span_too_large_raises():
 
 def test_surfel_path_ignores_tight_cull():
     """2DGS binning gets no conics, so tight_cull must silently no-op."""
-    from mojosplat_tpu.surfel import render_surfels
+    from mojosplat_jax.surfel import render_surfels
 
     cam = make_camera()
     params = make_aniso_scene(n=64)

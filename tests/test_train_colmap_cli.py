@@ -14,10 +14,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mojosplat_tpu import Camera, RenderConfig, render_gaussians
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils import save_gaussian_ply, save_png
-from mojosplat_tpu.utils.colmap import qvec_to_rotmat
+from mojosplat_jax import Camera, RenderConfig, render_gaussians
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils import save_gaussian_ply, save_png
+from mojosplat_jax.utils.colmap import qvec_to_rotmat
 
 
 @pytest.fixture(scope="module")
@@ -162,7 +162,7 @@ def test_train_cli_2dgs(capture, capsys):
     """--primitive 2dgs: real-capture surfel training with the paper's
     depth-distortion + normal-consistency regularizers and MCMC density
     control; the saved PLY must carry the (N, 2) surfel-scale layout."""
-    from mojosplat_tpu.utils import load_gaussian_ply
+    from mojosplat_jax.utils import load_gaussian_ply
 
     root = capture
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -6,10 +6,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mojosplat_tpu import train as mtrain
-from mojosplat_tpu.utils import StageTimer, compilation_count, to_uint8
-from mojosplat_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
-from mojosplat_tpu.utils.metrics import log_render_aux
+from mojosplat_jax import train as mtrain
+from mojosplat_jax.utils import StageTimer, compilation_count, to_uint8
+from mojosplat_jax.utils.checkpoint import restore_checkpoint, save_checkpoint
+from mojosplat_jax.utils.metrics import log_render_aux
 
 
 def test_to_uint8_clips():
@@ -55,9 +55,9 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_log_render_aux():
-    from mojosplat_tpu.ops.binning import BinningAux
-    from mojosplat_tpu.ops.rasterization import RasterAux
-    from mojosplat_tpu.render import RenderAux
+    from mojosplat_jax.ops.binning import BinningAux
+    from mojosplat_jax.ops.rasterization import RasterAux
+    from mojosplat_jax.render import RenderAux
 
     aux = RenderAux(
         binning=BinningAux(
@@ -78,7 +78,7 @@ def test_log_render_aux():
 class TestSSIM:
     def test_identical_images(self):
         import jax, jax.numpy as jnp
-        from mojosplat_tpu.train import ssim, dssim_l1_loss
+        from mojosplat_jax.train import ssim, dssim_l1_loss
 
         img = jax.random.uniform(jax.random.PRNGKey(0), (32, 32, 3))
         assert float(ssim(img, img)) > 0.9999
@@ -86,7 +86,7 @@ class TestSSIM:
 
     def test_noise_lowers_ssim(self):
         import jax, jax.numpy as jnp
-        from mojosplat_tpu.train import ssim
+        from mojosplat_jax.train import ssim
 
         img = jax.random.uniform(jax.random.PRNGKey(0), (32, 32, 3))
         noisy = jnp.clip(
@@ -96,13 +96,14 @@ class TestSSIM:
         assert float(ssim(img, noisy)) < 0.9
 
     def test_ssim_bounded_on_flat_regions(self):
-        """SSIM must never exceed 1 (+fp noise). With default-precision TPU
-        convs the bf16 variance cancellation error dwarfs c2 on constant
-        regions and SSIM exploded to ~1.7 (negative training loss, NaN
-        gradients) — the convs now pin HIGHEST precision. CPU convs can't
-        reproduce the bf16 failure, but this pins the invariant."""
+        """SSIM must never exceed 1 (+fp noise). With reduced-precision
+        convs (bf16 inputs, or TF32 on a GPU) the variance cancellation
+        error rivals c2 on constant regions and SSIM exploded to ~1.7
+        (negative training loss, NaN gradients) — the convs now pin HIGHEST
+        precision. CPU convs can't reproduce the failure, but this pins the
+        invariant."""
         import jax, jax.numpy as jnp
-        from mojosplat_tpu.train import ssim
+        from mojosplat_jax.train import ssim
 
         flat = jnp.zeros((64, 64, 3))
         half = flat.at[:32].set(0.8)  # flat with one hard edge
@@ -112,7 +113,7 @@ class TestSSIM:
 
     def test_batched_and_differentiable(self):
         import jax, jax.numpy as jnp
-        from mojosplat_tpu.train import dssim_l1_loss
+        from mojosplat_jax.train import dssim_l1_loss
 
         a = jax.random.uniform(jax.random.PRNGKey(0), (2, 16, 16, 3))
         b = jax.random.uniform(jax.random.PRNGKey(1), (2, 16, 16, 3))
@@ -127,7 +128,7 @@ class TestSSIM:
 
 def test_selective_adam_freezes_zero_grad_rows():
     import optax
-    from mojosplat_tpu import train as mtrain
+    from mojosplat_jax import train as mtrain
 
     params = dict(
         means3d=jnp.ones((6, 3)),
@@ -158,7 +159,7 @@ def test_selective_adam_freezes_zero_grad_rows():
 
 def test_selective_adam_matches_adam_when_all_visible():
     import optax
-    from mojosplat_tpu import train as mtrain
+    from mojosplat_jax import train as mtrain
 
     params = dict(a=jnp.linspace(0, 1, 12).reshape(4, 3))
     grads = dict(a=jnp.full((4, 3), 0.5))
